@@ -1,8 +1,8 @@
-"""pantas_tpu — a TPU-native spliced-pangenome alternative-splicing engine.
+"""pantas_tpu — a spliced-pangenome alternative-splicing engine on JAX.
 
 A from-scratch reimplementation of the capabilities of AlgoLab/pantas
 (haplotype-aware differential alternative-splicing quantification over an
-annotated spliced pangenome), redesigned for TPU hardware:
+annotated spliced pangenome), redesigned for accelerators:
 
 - the annotated GFA is compiled into dense node/edge/junction tensors
   (``pantas_tpu.graph``),

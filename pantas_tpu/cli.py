@@ -9,7 +9,7 @@ Subcommands and flags mirror the reference bash driver (``pantas:10-61``):
     remap    CSV GTF      [-i min-intron-size]
     version
 
-plus TPU-native extras:
+plus extras:
 
     map      GFA FQ1 [FQ2]  -> GAF on stdout (graph read mapper)
 """
@@ -78,7 +78,7 @@ def _cmd_augment(argv):
         choices=["auto", "host", "native", "device", "device-py"],
         default="auto",
         help="coverage engine: native C++ (fastest host), device (native parse"
-        " -> TPU scatter-add), device-py (pure-python parse -> device), "
+        " -> device scatter-add), device-py (pure-python parse -> device), "
         "host (pure python); auto prefers native",
     )
     ap.add_argument("-t", dest="threads", type=int, default=1, help="native parse threads")
@@ -122,6 +122,22 @@ def _reset_output_or_raise(out, exc):
     raise exc
 
 
+def _mesh_devices(n: int, spec):
+    """The first ``n`` JAX devices for ``--mesh spec``, or None (after an
+    error message naming the device count) when JAX has fewer."""
+    import jax
+
+    devices = jax.devices()
+    if len(devices) < n:
+        print(
+            f"ERROR: --mesh {spec} needs {n} devices; JAX has "
+            f"{len(devices)} ({devices[0].platform})",
+            file=sys.stderr,
+        )
+        return None
+    return devices[:n]
+
+
 def _run_augment(args, engine, out):
     if engine in ("auto", "native"):
         try:
@@ -138,35 +154,43 @@ def _run_augment(args, engine, out):
             _reset_output_or_raise(out, e)
             print(f"[augment] native engine unavailable ({e}); falling back", file=sys.stderr)
     if engine in ("device", "device-py"):
+        from pantas_tpu.compile_cache import enable_persistent_cache
         from pantas_tpu.coverage.device import (
             augment_gfa_device,
             augment_gfa_device_native,
         )
+        from pantas_tpu.native.gafcov import NativeUnsupported, native_available
 
+        enable_persistent_cache()
         mesh = None
         if args.mesh:
-            import jax
-
             from pantas_tpu.parallel.mesh import coverage_mesh, coverage_mesh_2d
 
-            if "x" in args.mesh:
-                d, k = (int(v) for v in args.mesh.split("x"))
-                mesh = coverage_mesh_2d(jax.devices()[: d * k], d, k)
-            else:
-                mesh = coverage_mesh(jax.devices()[: int(args.mesh)])
+            d, _, k = args.mesh.partition("x")
+            devices = _mesh_devices(int(d) * int(k or 1), args.mesh)
+            if devices is None:
+                return 1
+            mesh = (
+                coverage_mesh_2d(devices, int(d), int(k)) if k
+                else coverage_mesh(devices)
+            )
         if engine == "device":
+            # only an unavailable native parser selects the Python feed; a
+            # device or emission error propagates
             try:
+                if not native_available():
+                    raise NativeUnsupported("native engine failed to build")
                 augment_gfa_device_native(
                     args.GAF, args.GFA, out=out, mapq_thr=args.thr,
                     mesh=mesh, checkpoint_path=args.checkpoint,
                     resume=args.resume,
                 )
                 return 0
-            except Exception as e:
+            except NativeUnsupported as e:
                 _reset_output_or_raise(out, e)
                 print(
                     f"[augment] native device feed unavailable ({e}); "
-                    "python tokenizer fallback",
+                    "python tokenizer feed",
                     file=sys.stderr,
                 )
         augment_gfa_device(
@@ -190,8 +214,10 @@ def _cmd_augment_dist(argv):
     ap.add_argument("--nprocs", type=int, required=True)
     ap.add_argument("--procid", type=int, required=True)
     args = ap.parse_args(argv)
+    from pantas_tpu.compile_cache import enable_persistent_cache
     from pantas_tpu.parallel.distributed import augment_gfa_distributed
 
+    enable_persistent_cache()
     dt = augment_gfa_distributed(
         args.GAF, args.GFA, args.out,
         coordinator=args.coordinator, n_procs=args.nprocs, proc_id=args.procid,
@@ -457,18 +483,11 @@ def _cmd_call(argv):
         enable_persistent_cache()
         mesh = None
         if args.mesh:
-            import jax
-
             from pantas_tpu.parallel.mesh import coverage_mesh
 
-            devices = jax.devices()[: args.mesh]
-            if len(devices) < args.mesh:
-                print(
-                    f"[call] WARNING: --mesh {args.mesh} requested but only "
-                    f"{len(devices)} device(s) available; using a "
-                    f"{len(devices)}-device mesh",
-                    file=sys.stderr,
-                )
+            devices = _mesh_devices(args.mesh, args.mesh)
+            if devices is None:
+                return 1
             mesh = coverage_mesh(devices)
         call_fn = functools.partial(call_events_device, mesh=mesh)
     else:

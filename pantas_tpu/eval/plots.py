@@ -40,7 +40,7 @@ private machinery:
 * the reference's incidental ``print(df)`` / ``print(len(pantas_set))``
   debug output (parse_res.py:562,773) is not reproduced.
 
-Everything here is host-side and TPU-free by design; matplotlib/seaborn
+Everything here is host-side and device-free by design; matplotlib/seaborn
 imports are lazy and forced onto the Agg backend so the module works
 headless.
 """

@@ -3,7 +3,7 @@
 The reference pipeline exchanges plain-text stage files only (GFA / GAF /
 GTF / CSV — SURVEY §1 data-flow). On this class of machine the measured
 file-read ceiling (~180 MB/s, docs/PERFORMANCE.md) taxes every scan of a
-multi-GB artifact, so the TPU-native framework accepts gzip (``.gz``) and
+multi-GB artifact, so the framework accepts gzip (``.gz``) and
 zstandard (``.zst``) transparently on every stage INPUT and offers
 compressed stage OUTPUT opt-in (by naming the output ``*.gz``/``*.zst``).
 Byte-identity contracts are defined on the DECOMPRESSED content — the

@@ -53,7 +53,7 @@ struct Engine {
   // (no separate seen-flag array: hist slots are touched only by
   //  bump_hist, so counts[slot]==0 IS the never-seen predicate)
 
-  // slot-stream mode (the TPU device-engine feed): instead of accumulating
+  // slot-stream mode (the device-engine feed): instead of accumulating
   // host-side, every count contribution is appended to slot_stream as a
   // flat int32 slot index; the device scatter-adds the stream and the final
   // counts are copied back via gafcov_counts_set before emission. counts[]
@@ -1038,7 +1038,7 @@ int64_t gafcov_accepted(void *h) { return ((Engine *)h)->accepted; }
 
 void gafcov_destroy(void *h) { delete (Engine *)h; }
 
-// --- slot-stream session (native feed for the TPU device engine) ----------
+// --- slot-stream session (native feed for the device engine) ---------------
 //
 // Mirrors the host/device split of the reference augmenter (host tokenize,
 // device accumulate — scripts/alignments_augmentation_from_gaf.py:134-371):

@@ -10,7 +10,6 @@ from __future__ import annotations
 import ctypes
 import io
 import os
-import subprocess
 import sys
 from pathlib import Path
 from typing import Optional
@@ -19,6 +18,7 @@ import numpy as np
 
 from pantas_tpu.coverage.host import CoverageCounts, emit_augmented_gfa
 from pantas_tpu.graph.compiler import GraphTensors, compile_gfa
+from pantas_tpu.native import buildkey
 
 _SRC = Path(__file__).parent / "gafcov.cpp"
 _SRC2 = Path(__file__).parent / "aligner.cpp"
@@ -27,24 +27,16 @@ _SO = Path(__file__).parent / "libgafcov.so"
 _lib = None
 
 
-def build_library(force: bool = False) -> Path:
-    newest_src = max(_SRC.stat().st_mtime, _SRC2.stat().st_mtime)
-    if force or not _SO.exists() or _SO.stat().st_mtime < newest_src:
-        cmd = [
-            "g++",
-            "-O3",
-            "-march=native",
-            "-std=c++17",
-            "-pthread",
-            "-shared",
-            "-fPIC",
-            str(_SRC),
-            str(_SRC2),
-            "-o",
-            str(_SO),
-        ]
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-    return _SO
+_FLAGS = ["-O3", "-march=native", "-std=c++17", "-pthread", "-shared", "-fPIC"]
+
+
+class NativeUnsupported(ValueError):
+    """The native engine cannot take this graph (segment ids it cannot key)."""
+
+
+def build_library(force: bool = False) -> bool:
+    """Compile ``libgafcov.so`` unless its build key matches; True if built."""
+    return buildkey.build(_SO, [_SRC, _SRC2], _FLAGS, force=force)
 
 
 def native_available() -> bool:
@@ -287,10 +279,10 @@ class NativeCoverage:
             ):
                 raise ValueError("non-canonical integer segment id")
         except ValueError as e:
-            raise ValueError("native path requires integer segment ids") from e
+            raise NativeUnsupported("native path requires integer segment ids") from e
         order = np.argsort(ids, kind="stable")
         if not np.array_equal(order, np.arange(len(ids))):
-            raise ValueError("native path requires ids sorted in file order")
+            raise NativeUnsupported("native path requires ids sorted in file order")
         dense = bool(
             len(ids) > 0 and ids[0] == 1 and np.array_equal(ids, np.arange(1, len(ids) + 1))
         )

@@ -8,9 +8,10 @@ against the interpreter's headers and loaded from its file path.
 from __future__ import annotations
 
 import importlib.util
-import subprocess
 import sysconfig
 from pathlib import Path
+
+from pantas_tpu.native import buildkey
 
 _SRC = Path(__file__).parent / "gfaload.cpp"
 _SO = Path(__file__).parent / "gfaload_ext.so"
@@ -19,24 +20,15 @@ _mod = None
 _failed = False
 
 
-def build_extension(force: bool = False) -> Path:
-    if force or not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-        inc = sysconfig.get_paths()["include"]
-        cmd = [
-            "g++",
-            "-O3",
-            "-march=native",
-            "-std=c++17",
-            "-pthread",  # the parallel scan spawns std::thread
-            "-shared",
-            "-fPIC",
-            f"-I{inc}",
-            str(_SRC),
-            "-o",
-            str(_SO),
-        ]
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-    return _SO
+def _flags():
+    inc = sysconfig.get_paths()["include"]
+    # -pthread: the parallel scan spawns std::thread
+    return ["-O3", "-march=native", "-std=c++17", "-pthread", "-shared", "-fPIC", f"-I{inc}"]
+
+
+def build_extension(force: bool = False) -> bool:
+    """Compile ``gfaload_ext.so`` unless its build key matches; True if built."""
+    return buildkey.build(_SO, [_SRC], _flags(), force=force)
 
 
 def get_module():

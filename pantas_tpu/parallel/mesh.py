@@ -8,8 +8,8 @@ bit-exact regardless of topology or shard count.
 
 The reference has no distributed runtime at all (its parallelism is one OS
 process per chromosome/replicate, ``build/build.smk`` + Snakemake); this
-module is the TPU-native replacement: N chips per replicate instead of one
-process per replicate.
+module replaces it with N devices per replicate instead of one process per
+replicate.
 """
 
 from __future__ import annotations
@@ -23,27 +23,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 DATA_AXIS = "data"
-
-
-def initialize_distributed() -> bool:
-    """Join a multi-host jax runtime when launch env vars are present.
-
-    Multi-host runs (one process per host, chips per host discovered
-    automatically) coordinate through `jax.distributed`; GAF shards are
-    assigned per process and coverage partials merge with the same psum the
-    single-host path uses — DCN carries only the input shard distribution
-    and the final gather (SURVEY §5 'communication backend' row).
-
-    Returns True when distributed mode was initialized.
-    """
-    import os
-
-    if os.environ.get("JAX_COORDINATOR_ADDRESS") or os.environ.get(
-        "COORDINATOR_ADDRESS"
-    ):
-        jax.distributed.initialize()
-        return True
-    return False
 
 
 def coverage_mesh(devices: Optional[Sequence] = None) -> Mesh:
@@ -61,16 +40,22 @@ def scatter_add_counts(counts: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     return counts.at[safe].add(val)
 
 
+# The single-device augment step. XLA lowers the scatter-add to native
+# atomic adds on a GPU. The counts buffer is donated: at genome scale it is
+# ~1 GB, and an undonated step would copy it every batch.
+scatter_step = jax.jit(scatter_add_counts, donate_argnums=(0,))
+
+
 def data_parallel_scatter_add(mesh: Mesh):
     """Build the sharded coverage accumulator for a mesh.
 
     Returns a jitted fn ``(parts, idx) -> parts`` where ``idx`` is sharded
     over the data axis and ``parts`` is a per-device PRIVATE partial-counts
-    matrix ``(n_data, slots)`` sharded over its leading axis: each chip
+    matrix ``(n_data, slots)`` sharded over its leading axis: each device
     scatter-adds its stream shard into its own row with ZERO per-batch
     communication. The single reduction the math needs (integer adds are
     associative) happens once at stream end in :func:`reduce_data_parts` —
-    the ICI-collective equivalent of the reference's per-replicate process
+    the collective equivalent of the reference's per-replicate process
     merge, paid once instead of per batch.
     """
 

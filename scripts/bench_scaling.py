@@ -3,10 +3,10 @@
 
 Measures the sharded scatter-add + psum step over an N-device mesh at fixed
 TOTAL work, reporting throughput and scaling efficiency vs 1 device. On
-real multi-chip hardware this is the ≥80%-efficiency check from
-BASELINE.md; on this single-chip environment it runs on virtual CPU
-devices (methodology + correctness, not absolute rates — note the host has
-2 physical cores, so virtual-device scaling saturates immediately).
+several accelerators this is the ≥80%-efficiency check from BASELINE.md.
+It runs on JAX's default platform; ``JAX_PLATFORMS=cpu`` gives up to
+``max_devices`` virtual CPU devices (methodology + correctness, not
+device rates: virtual-device scaling saturates at the host's core count).
 
 Usage: python scripts/bench_scaling.py [max_devices] [stream_size]
 """
@@ -29,12 +29,6 @@ if "host_platform_device_count" not in flags:
     ).strip()
 
 import jax  # noqa: E402
-
-# default: virtual CPU devices (jax.devices() would initialize the real
-# backend and lock the platform before we could switch). Pass --tpu to
-# measure on real chips (pod slices).
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -3,7 +3,7 @@
 
 Unlike bench_scaling.py (which times only the device scatter-add step),
 this drives the full multi-host contract: N OS processes coordinate via
-jax.distributed (Gloo on CPU, ICI on a pod), each streams its contiguous
+jax.distributed (Gloo on CPU, NCCL on GPUs), each streams its contiguous
 byte range of the GAF through the host tokenizer + device scatter-add,
 partial counts merge with one cross-process all-reduce, first-seen orders
 merge via sidecars, and process 0 emits the augmented GFA — which is
@@ -14,7 +14,7 @@ Defaults: 100000 records from the bench workload, proc counts 1 2.
 
 Writes one JSON line per configuration. Note the honest caveat: this host
 has few physical cores, so CPU efficiency saturates at the core count; on
-multi-host TPU the same code path shards across real machines.
+several hosts the same code path shards across real machines.
 """
 
 import io
@@ -67,8 +67,7 @@ def run_n(gfa, gaf, n, out):
     port = free_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
-    env["JAX_PLATFORMS"] = "cpu"
-    env.pop("XLA_FLAGS", None)
+    env.pop("XLA_FLAGS", None)  # one device per CPU process
     t0 = time.time()
     procs = [
         subprocess.Popen(
@@ -76,7 +75,9 @@ def run_n(gfa, gaf, n, out):
              str(gaf), str(gfa), "-o", str(out),
              "--coordinator", f"127.0.0.1:{port}",
              "--nprocs", str(n), "--procid", str(i)],
-            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            # one card per process on a GPU host; JAX_PLATFORMS=cpu for Gloo
+            env=dict(env, JAX_LOCAL_DEVICE_IDS=str(i)),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
         )
         for i in range(n)
     ]

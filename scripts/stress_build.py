@@ -42,12 +42,13 @@ def rss_gb():
 
 
 def gen_inputs(wd: Path, mbp=None, n_var=None, n_genes=None, n_samples=None,
-               n_chroms=None, n_exons=5, n_tx=2):
+               n_chroms=None, n_exons=5, n_tx=2, seed=11):
     """Write synthetic FA/GTF/VCF into wd (importable; args default to the
     CLI globals so the script behaves as before). ``n_exons``/``n_tx``
     control isoform richness: transcript 1 is the full exon chain, each
     further isoform skips a different internal exon (ES-dense annotation
-    for call-stage benchmarks)."""
+    for call-stage benchmarks). ``seed`` fixes the sequence, the variant
+    positions and the genotypes."""
     import numpy as np
 
     MBP = mbp if mbp is not None else globals()["MBP"]
@@ -56,7 +57,7 @@ def gen_inputs(wd: Path, mbp=None, n_var=None, n_genes=None, n_samples=None,
     N_SAMPLES = n_samples if n_samples is not None else globals()["N_SAMPLES"]
     N_CHROMS = n_chroms if n_chroms is not None else globals()["N_CHROMS"]
 
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     L = int(MBP * 1e6) // N_CHROMS
     bases = np.frombuffer(b"ACGT", dtype="S1")
 
